@@ -13,7 +13,7 @@ evaluate_ate_scale.py semantics, reimplemented in io/evaluation.py).
 
 --streaming replays through the single-dispatch device pipeline
 (pipeline/streaming.py) instead of the host-policy System facade — the
-TPU-native fast path.
+fast path.
 """
 
 import argparse
@@ -39,8 +39,8 @@ def main():
 
     import jax.numpy as jnp
 
-    from openmavis_tpu.io import datasets, evaluation, settings as cfg_mod
-    from openmavis_tpu.pipeline import system
+    from openmavis_jax.io import datasets, evaluation, settings as cfg_mod
+    from openmavis_jax.pipeline import system
 
     seq = datasets.load_euroc(args.sequence, cams=("cam0",))
     n = seq.n_frames if args.max_frames <= 0 else min(
@@ -61,10 +61,10 @@ def main():
                               cy=248.375)
 
     if args.streaming:
-        from openmavis_tpu.frontend import extractor
-        from openmavis_tpu.geometry import cameras
-        from openmavis_tpu.optim.reprojection import RigParams
-        from openmavis_tpu.pipeline import streaming
+        from openmavis_jax.frontend import extractor
+        from openmavis_jax.geometry import cameras
+        from openmavis_jax.optim.reprojection import RigParams
+        from openmavis_jax.pipeline import streaming
 
         c1 = cfg["Camera1"]
         pin = np.array([c1["fx"], c1["fy"], c1["cx"], c1["cy"],
@@ -86,7 +86,7 @@ def main():
         tr.block()
         dt = time.perf_counter() - t0
         t_est, R_est, p_est = tr.get_trajectory()
-        from openmavis_tpu.io import trajectory
+        from openmavis_jax.io import trajectory
         trajectory.save_tum(args.out, t_est, R_est, p_est)
     else:
         slam = system.System(cfg, system.Sensor.MONOCULAR,

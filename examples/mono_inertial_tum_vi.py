@@ -33,8 +33,8 @@ def main():
                          "(the reference mains' bUseViewer; default port 8080)")
     args = ap.parse_args()
 
-    from openmavis_tpu.io import datasets, evaluation, settings as cfg_mod
-    from openmavis_tpu.pipeline import system
+    from openmavis_jax.io import datasets, evaluation, settings as cfg_mod
+    from openmavis_jax.pipeline import system
 
     seq = datasets.load_tumvi(args.sequence, cams=("cam0",))
     n = seq.n_frames if args.max_frames <= 0 else min(

@@ -50,11 +50,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.imu import preintegration as pre_mod
-    from openmavis_tpu.io import (datasets, evaluation,
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.imu import preintegration as pre_mod
+    from openmavis_jax.io import (datasets, evaluation,
                                   settings as cfg_mod, trajectory)
-    from openmavis_tpu.pipeline import loop_closing, streaming_vi
+    from openmavis_jax.pipeline import loop_closing, streaming_vi
 
     cams = tuple(args.cams.split(","))
     seq = datasets.load_euroc(args.sequence, cams=cams)
@@ -79,8 +79,8 @@ def main():
     else:
         # EuRoC stereo defaults (reference: Examples/Stereo-Inertial/
         # EuRoC.yaml); replace with --settings for other rigs
-        from openmavis_tpu.geometry import cameras
-        from openmavis_tpu.optim.reprojection import RigParams
+        from openmavis_jax.geometry import cameras
+        from openmavis_jax.optim.reprojection import RigParams
         img0 = seq.frame(0)
         H, W = img0.shape[1], img0.shape[2]
         pin = np.array([458.654, 457.296, 367.215, 248.375,

@@ -36,8 +36,8 @@ def main():
                          "(the reference mains' bUseViewer; default port 8080)")
     args = ap.parse_args()
 
-    from openmavis_tpu.io import datasets, settings as cfg_mod, trajectory
-    from openmavis_tpu.pipeline import system
+    from openmavis_jax.io import datasets, settings as cfg_mod, trajectory
+    from openmavis_jax.pipeline import system
 
     if args.settings:
         cfg = cfg_mod.load_settings(args.settings)["raw"]

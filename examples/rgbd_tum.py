@@ -35,9 +35,9 @@ def main():
                          "(the reference mains' bUseViewer; default port 8080)")
     args = ap.parse_args()
 
-    from openmavis_tpu.io import datasets, evaluation
-    from openmavis_tpu.io import settings as cfg_mod
-    from openmavis_tpu.pipeline import system
+    from openmavis_jax.io import datasets, evaluation
+    from openmavis_jax.io import settings as cfg_mod
+    from openmavis_jax.pipeline import system
 
     seq = datasets.load_tum_rgbd(args.sequence,
                                  depth_scale=args.depth_scale)

@@ -33,9 +33,9 @@ def main():
                          "(the reference mains' bUseViewer; default port 8080)")
     args = ap.parse_args()
 
-    from openmavis_tpu.io import datasets, evaluation
-    from openmavis_tpu.io import settings as cfg_mod
-    from openmavis_tpu.pipeline import system
+    from openmavis_jax.io import datasets, evaluation
+    from openmavis_jax.io import settings as cfg_mod
+    from openmavis_jax.pipeline import system
 
     seq = datasets.load_euroc(args.sequence, cams=("cam0", "cam1"))
     n = seq.n_frames if args.max_frames <= 0 else min(

@@ -1,6 +1,6 @@
 // Native dataset runtime: threaded PNG decoding with ordered prefetch.
 //
-// The TPU-native equivalent of the reference's host-side data path (the
+// The equivalent of the reference's host-side data path (the
 // per-frame cv::imread calls in Examples/*/ *.cc, e.g.
 // multi_inertial_euroc.cc:148-176): a pool of decoder threads fills a
 // fixed-capacity ring of frame slots ahead of the consumer, so image

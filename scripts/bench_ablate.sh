@@ -1,7 +1,7 @@
 #!/bin/bash
-# Flagship-bench ablation matrix on the real TPU: attributes per-frame
-# cost to pipeline stages by end-to-end deltas and isolates accuracy
-# regressions. Writes one JSON line per config to stdout.
+# Flagship-bench ablation matrix on the GPU: attributes per-frame cost to
+# pipeline stages by end-to-end deltas and isolates accuracy regressions.
+# Writes one JSON line per config to stdout.
 set -u
 cd "$(dirname "$0")/.."
 run() {
@@ -12,5 +12,5 @@ run                                   # default: 64-KF slab, BoW LC, gba amortiz
 run --gba-steps 0                     # minus amortized post-loop GBA
 run --no-lc                           # minus the whole LC program
 run --kf-interval 0.5                 # half the keyframe rate (mapper chain cost)
-run --fpd 8                           # chunked dispatch (transport overhead)
+run --fpd 8                           # chunked dispatch (one scan per 8 frames)
 run --max-kf 256 --max-mp 32768 --track-cap 8192   # Atlas-scale slab (slab-size cost)

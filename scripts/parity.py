@@ -2,7 +2,7 @@
 """Dataset-parity harness: BASELINE.json configs 1-5, ready to fire.
 
 Maps each parity config to an example-main invocation with the
-REFERENCE'S OWN yaml (ingested verbatim by openmavis_tpu.io.settings)
+REFERENCE'S OWN yaml (ingested verbatim by openmavis_jax.io.settings)
 and an ATE gate evaluated with the reference metric semantics
 (evaluation/evaluate_ate_scale.py:141-165 — Horn alignment, RMSE with
 and without scale).
@@ -123,7 +123,7 @@ def run_config(key: str, data_root: str, max_frames: int = 0,
            "cmd": " ".join(argv), "stderr_tail": proc.stderr[-800:]}
     if proc.returncode == 0 and gt:
         import numpy as np
-        from openmavis_tpu.io import evaluation
+        from openmavis_jax.io import evaluation
         t_gt, p_gt = evaluation.load_ground_truth(gt)
         traj = np.loadtxt(out)
         ate = evaluation.ate_rmse(traj[:, 0], traj[:, 1:4], t_gt, p_gt,
@@ -165,7 +165,7 @@ def run_multisession(data_root: str, max_frames: int = 0,
            "stderr_tail": proc.stderr[-800:]}
     if proc.returncode == 0:
         import numpy as np
-        from openmavis_tpu.io import evaluation
+        from openmavis_jax.io import evaluation
         ates = {}
         ok_all = True
         for i, (seq, gt_name) in enumerate(seqs):

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Per-stage device timing of the keyframe mapper chain at the flagship
-budget — the residual 28-vs-30 fps lever named in PERF.md. Reuses the
-bench rig/sequence, streams enough frames to populate a realistic map,
-then times each kf_insert stage in isolation with the backpressure
-protocol (enqueue `reps` dispatches, block once)."""
+budget. Reuses the bench rig/sequence, streams enough frames to populate
+a realistic map, then times each kf_insert stage in isolation (enqueue
+`reps` dispatches, block once)."""
 
 import sys
 import time
@@ -18,13 +17,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.imu import preintegration as pre_mod
-    from openmavis_tpu.io import synthetic
-    from openmavis_tpu.pipeline import multi_tracking as mt
-    from openmavis_tpu.pipeline import streaming_vi, tracking as trk
-    from openmavis_tpu.slam_map import map_state as ms
-    from openmavis_tpu.utils import device as dev
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.imu import preintegration as pre_mod
+    from openmavis_jax.io import synthetic
+    from openmavis_jax.pipeline import multi_tracking as mt
+    from openmavis_jax.pipeline import streaming_vi, tracking as trk
+    from openmavis_jax.slam_map import map_state as ms
 
     n_frames = 100
     rig, rig_np = bench.build_rig("kb8")
@@ -67,18 +65,15 @@ def main():
     Wn = cfg.ba_window
 
     def timeit(f, *fargs, reps=20):
-        with dev.host_trace():
+        out = f(*fargs)
+        jax.block_until_ready(out)
+        t0 = time.perf_counter()
+        for _ in range(reps):
             out = f(*fargs)
-            jax.block_until_ready(out)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                out = f(*fargs)
-            jax.block_until_ready(out)
+        jax.block_until_ready(out)
         return (time.perf_counter() - t0) / reps * 1e3
 
-    with dev.host_trace():
-        slot = jnp.maximum(c.last_kf_slot, 0)
-        slot = jax.device_put(slot, dev.compute_device())
+    slot = jnp.maximum(c.last_kf_slot, 0)
 
     stages = {}
 

@@ -3,7 +3,7 @@
 
 The reference ships a pre-trained 1M-word vocabulary
 (Vocabulary/ORBvoc.txt, k=10 L=6; build.sh:30-33) trained offline on
-~10k images. This trains the TPU-native tree (slam_map/vocabulary.py —
+~10k images. This trains the device tree (slam_map/vocabulary.py —
 batched k-means over Hamming space, all nodes of a level in one jitted
 loop) from any EuRoC-layout dataset directory, or from a synthetic
 world when no dataset is mounted, and persists it with an MD5 content
@@ -25,8 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 def collect_dataset(dirs, n_frames, orb):
     import numpy as np
     import jax.numpy as jnp
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.io import datasets
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.io import datasets
 
     out = []
     for d in dirs:
@@ -43,9 +43,9 @@ def collect_dataset(dirs, n_frames, orb):
 def collect_synthetic(n_frames, orb):
     import numpy as np
     import jax.numpy as jnp
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.geometry import cameras
-    from openmavis_tpu.io import synthetic
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.geometry import cameras
+    from openmavis_jax.io import synthetic
 
     W, H = 640, 480
     pin = np.array([380.0, 380.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)
@@ -73,8 +73,8 @@ def main():
     args = ap.parse_args()
 
     import numpy as np
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.slam_map import vocabulary as voc
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.slam_map import vocabulary as voc
 
     orb = extractor.OrbConfig(n_features=1024, n_levels=8)
     if args.data:

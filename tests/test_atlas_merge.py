@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.optim import pose_graph, sim3_refine
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import loop_closing, tracking
-from openmavis_tpu.slam_map import atlas as atlas_mod
-from openmavis_tpu.io import synthetic
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.optim import pose_graph, sim3_refine
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import loop_closing, tracking
+from openmavis_jax.slam_map import atlas as atlas_mod
+from openmavis_jax.io import synthetic
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.imu import preintegration as pre_mod
-from openmavis_tpu.optim import ba, pose_opt
-from openmavis_tpu.optim.reprojection import RigParams
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.imu import preintegration as pre_mod
+from openmavis_jax.optim import ba, pose_opt
+from openmavis_jax.optim.reprojection import RigParams
 
 F = jnp.float32
 PIN = jnp.array([400.0, 400.0, 320.0, 240.0, 0, 0, 0, 0], dtype=F)

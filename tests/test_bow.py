@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.slam_map import bow, map_state as ms
+from openmavis_jax.slam_map import bow, map_state as ms
 
 
 def _rand_desc(rng, n=256):
@@ -77,7 +77,7 @@ def test_mapstate_bow_insert_and_compact():
 def test_device_retrieval_prefers_revisit():
     """streaming_lc retrieval must rank the revisited keyframe first at a
     map size where the old dense pairwise path would be prohibitive."""
-    from openmavis_tpu.pipeline import streaming_lc
+    from openmavis_jax.pipeline import streaming_lc
 
     rng = np.random.default_rng(3)
     K, F = 96, 128

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import cameras, lie, triangulation
+from openmavis_jax.geometry import cameras, lie, triangulation
 
 PINHOLE_P = jnp.array([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0],
                       dtype=jnp.float32)
@@ -144,7 +144,7 @@ class TestUndistortFeatures:
     def test_roundtrip_single_and_multicam(self):
         """Distorted-pinhole keypoints lift to ideal pinhole pixels
         (reference: Frame::UndistortKeyPoints via cv::undistortPoints)."""
-        from openmavis_tpu.frontend import extractor
+        from openmavis_jax.frontend import extractor
         params = jnp.asarray([458.0, 457.0, 367.0, 248.0, 0, 0, 0, 0])
         dist = jnp.asarray([-0.28, 0.074, 1.9e-4, 1.8e-5])
         key = jax.random.PRNGKey(0)

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.optim import ba
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.parallel import dist_ba, dist_place
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.optim import ba
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.parallel import dist_ba, dist_place
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow
@@ -93,7 +93,7 @@ class TestLandmarkShardedGBA:
         """Landmark-sharded GBA (points + Hll partitioned over the mesh)
         must agree with the replicated-state GBA and the single-device
         solve — the state-sharding scale-out path."""
-        from openmavis_tpu.optim import global_ba
+        from openmavis_jax.optim import global_ba
 
         state0, obs, fixed, R_gt, t_gt, points = make_problem(
             jax.random.PRNGKey(2), K=6, M=160)
@@ -131,9 +131,9 @@ class TestLandmarkShardedGBA:
 class TestShardedPlaceRecognition:
     def test_matches_single_device(self):
         import jax.numpy as jnp
-        from openmavis_tpu.parallel import dist_place
-        from openmavis_tpu.pipeline import tracking
-        from openmavis_tpu.slam_map import map_state as ms
+        from openmavis_jax.parallel import dist_place
+        from openmavis_jax.pipeline import tracking
+        from openmavis_jax.slam_map import map_state as ms
 
         key = jax.random.PRNGKey(0)
         K, F = 16, 64

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.frontend import extractor, fast, matcher, orb, pyramid
+from openmavis_jax.frontend import extractor, fast, matcher, orb, pyramid
 
 
 def checkerboard(h=128, w=128, sq=16, lo=50.0, hi=200.0):

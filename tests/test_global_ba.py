@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.optim import ba, global_ba
-from openmavis_tpu.optim.reprojection import RigParams
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.optim import ba, global_ba
+from openmavis_jax.optim.reprojection import RigParams
 
 from test_ba import make_window, mono_rig
 
@@ -111,7 +111,7 @@ class TestDistributedGlobalBA:
         track the single-device result (psum-reduced operators are
         bit-identical math up to reduction order)."""
         import jax
-        from openmavis_tpu.parallel import dist_ba
+        from openmavis_jax.parallel import dist_ba
 
         K, M = 8, 400
         points, R_gt, t_gt, obs = make_window(jax.random.PRNGKey(3), K, M)

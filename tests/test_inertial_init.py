@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import lie
-from openmavis_tpu.imu import preintegration as pre_mod
-from openmavis_tpu.optim import inertial_init
+from openmavis_jax.geometry import lie
+from openmavis_jax.imu import preintegration as pre_mod
+from openmavis_jax.optim import inertial_init
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import pytest
 from PIL import Image
 
-from openmavis_tpu.geometry import lie
-from openmavis_tpu.io import datasets, serialization, trajectory
-from openmavis_tpu.slam_map import atlas, map_state as ms
+from openmavis_jax.geometry import lie
+from openmavis_jax.io import datasets, serialization, trajectory
+from openmavis_jax.slam_map import atlas, map_state as ms
 
 
 @pytest.fixture(scope="module")
@@ -29,7 +29,7 @@ def png_dir(tmp_path_factory):
 
 class TestNativeLoader:
     def test_decode_matches_pil(self, png_dir):
-        from openmavis_tpu.io import native_loader
+        from openmavis_jax.io import native_loader
         dec = native_loader.NativeDecoder()
         for p, gt in png_dir[:3]:
             img = dec.decode(p)
@@ -37,7 +37,7 @@ class TestNativeLoader:
             np.testing.assert_array_equal(img.astype(np.uint8), gt)
 
     def test_stream_ordered(self, png_dir):
-        from openmavis_tpu.io import native_loader
+        from openmavis_jax.io import native_loader
         paths = [p for p, _ in png_dir]
         stream = native_loader.FrameStream(paths, 64, 48, n_threads=3,
                                            capacity=4)
@@ -217,9 +217,9 @@ def test_atlas_multi_map_roundtrip(tmp_path):
     """Whole-Atlas checkpoint: N maps + current index survive a save/load
     cycle (reference: System::SaveAtlas/LoadAtlas serialize the full
     Atlas, src/System.cc:1420-1556)."""
-    from openmavis_tpu.io import serialization
-    from openmavis_tpu.slam_map import atlas as atlas_mod
-    from openmavis_tpu.slam_map import map_state as ms
+    from openmavis_jax.io import serialization
+    from openmavis_jax.slam_map import atlas as atlas_mod
+    from openmavis_jax.slam_map import map_state as ms
 
     atlas = atlas_mod.Atlas()
     for i in range(3):

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.geometry import lie
+from openmavis_jax.geometry import lie
 
 
 def _rand_w(key, n, scale=2.0):

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import loop_closing, tracking
-from openmavis_tpu.slam_map import vocabulary
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import loop_closing, tracking
+from openmavis_jax.slam_map import vocabulary
 
 W, H = 512, 384
 PIN = np.array([380.0, 380.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import loop_closing
-from openmavis_tpu.slam_map import map_state as ms
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import loop_closing
+from openmavis_jax.slam_map import map_state as ms
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

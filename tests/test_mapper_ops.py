@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.io import settings as settings_mod
-from openmavis_tpu.pipeline import tracking
-from openmavis_tpu.slam_map import map_state as ms
+from openmavis_jax.io import settings as settings_mod
+from openmavis_jax.pipeline import tracking
+from openmavis_jax.slam_map import map_state as ms
 
 
 def small_map(K=6, F=8, M=32):

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import multi_tracking
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import multi_tracking
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

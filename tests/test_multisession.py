@@ -8,7 +8,7 @@ is globally optimized with the landmark-sharded distributed GBA on the
 8-device mesh and must agree with the single-device solve.
 
 (reference: multi-session operation via Atlas save/load + MergeLocal,
-src/LoopClosing.cc:1381/1956; the distributed stage is the new TPU
+src/LoopClosing.cc:1381/1956; the distributed stage is the new
 capability — SURVEY.md §2.3.)
 """
 
@@ -17,14 +17,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras, lie
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim import ba
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.parallel import dist_ba
-from openmavis_tpu.pipeline import loop_closing, tracking
-from openmavis_tpu.slam_map import atlas as atlas_mod
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras, lie
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim import ba
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.parallel import dist_ba
+from openmavis_jax.pipeline import loop_closing, tracking
+from openmavis_jax.slam_map import atlas as atlas_mod
 
 pytestmark = pytest.mark.slow
 
@@ -90,7 +90,7 @@ def test_multisession_merge_and_distributed_gba():
         stages=(2,), cg_iters=8)
     assert np.isfinite(float(chi_d))
 
-    from openmavis_tpu.optim import global_ba
+    from openmavis_jax.optim import global_ba
     st_1, inl_1, chi_1 = jax.jit(
         lambda s, o: global_ba.global_bundle_adjust(
             s, o, mono_rig(), fixed, point_fixed=~observed,

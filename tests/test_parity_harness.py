@@ -38,7 +38,7 @@ def test_config_table_resolves():
 
 
 def test_reference_yamls_ingest():
-    from openmavis_tpu.io import settings as cfg_mod
+    from openmavis_jax.io import settings as cfg_mod
     parity = _load_parity()
     for _, _, _, yaml_path, _, _, _ in parity.CONFIGS:
         if not os.path.exists(yaml_path):
@@ -49,7 +49,7 @@ def test_reference_yamls_ingest():
 
 
 def test_reference_ground_truth_loads():
-    from openmavis_tpu.io import evaluation
+    from openmavis_jax.io import evaluation
     gt = os.path.join(_load_parity().GT_EUROC, "MH01_GT.txt")
     if not os.path.exists(gt):
         pytest.skip("reference GT not mounted")

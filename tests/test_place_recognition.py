@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import lie
-from openmavis_tpu.optim import pose_graph
-from openmavis_tpu.slam_map import keyframe_db, vocabulary
+from openmavis_jax.geometry import lie
+from openmavis_jax.optim import pose_graph
+from openmavis_jax.slam_map import keyframe_db, vocabulary
 
 
 def random_desc(key, n):
@@ -158,7 +158,7 @@ class TestPoseGraph:
 
 class TestSparseKeyframeDB:
     """Word-sparse inverted-file scoring (reference:
-    src/KeyFrameDatabase.cc:581; VERDICT r2 #5 — memory bounded by top-W
+    src/KeyFrameDatabase.cc:581 — memory bounded by top-W
     pairs per keyframe, independent of vocabulary size)."""
 
     def test_sparse_matches_dense_scores(self):
@@ -205,8 +205,8 @@ class TestSparseKeyframeDB:
     def test_retrieval_at_scale_revisit(self):
         """K=256 keyframes x 2048-feature banks, 10k-word (k=10, L=4)
         vocabulary: the second pass over 32 places must retrieve its
-        first-pass counterpart, with precision >= the dense-matrix path
-        (VERDICT r2 #5 'Done' criterion)."""
+        first-pass counterpart, with precision >= the dense-matrix
+        path."""
         import pytest
         pytest.importorskip("jax")
         rng = np.random.RandomState(0)
@@ -252,7 +252,7 @@ def test_vocabulary_save_load_roundtrip(tmp_path):
     """Persistent vocabulary with content-hash binding (reference: the
     shipped ORBvoc + MD5 binding, System.cc:1520-1556)."""
     import numpy as np
-    from openmavis_tpu.slam_map import vocabulary as voc
+    from openmavis_jax.slam_map import vocabulary as voc
 
     rng = np.random.default_rng(0)
     desc = rng.integers(0, 2, (4000, 256)).astype(np.int8)

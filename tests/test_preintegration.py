@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.imu import preintegration as pre
-from openmavis_tpu.geometry import lie
+from openmavis_jax.imu import preintegration as pre
+from openmavis_jax.geometry import lie
 
 G = np.array([0.0, 0.0, -9.81])
 

@@ -14,8 +14,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import rectify
-from openmavis_tpu.geometry import cameras
+from openmavis_jax.frontend import rectify
+from openmavis_jax.geometry import cameras
 
 W, H = 320, 240
 K1 = np.array([260.0, 258.0, 158.0, 122.0, 0, 0, 0, 0], np.float32)
@@ -95,7 +95,7 @@ def test_remap_bilinear_identity_and_shift():
 
 
 def test_settings_produce_rect():
-    from openmavis_tpu.io import settings as cfg_mod
+    from openmavis_jax.io import settings as cfg_mod
 
     R12, t12 = _rig_raw()
     T12 = np.eye(4)
@@ -134,14 +134,14 @@ def test_stereo_e2e_on_distorted_unrectified_renders():
     standard 2-cam streaming tracker; gated BOTH absolutely and against
     an ideal-input control run — the rectified-from-raw pipeline must
     not degrade tracking relative to the same pipeline fed ideal
-    undistorted parallel-rig frames (VERDICT r4 #6; reference consumes
+    undistorted parallel-rig frames (the reference consumes
     raw EuRoC pairs through precomputeRectificationMaps,
     src/Settings.cc:683-725)."""
-    from openmavis_tpu.io import synthetic, evaluation
-    from openmavis_tpu.frontend import extractor
-    from openmavis_tpu.optim.reprojection import RigParams
-    from openmavis_tpu.pipeline import streaming_vi
-    from openmavis_tpu.imu import preintegration as pre_mod
+    from openmavis_jax.io import synthetic, evaluation
+    from openmavis_jax.frontend import extractor
+    from openmavis_jax.optim.reprojection import RigParams
+    from openmavis_jax.pipeline import streaming_vi
+    from openmavis_jax.imu import preintegration as pre_mod
 
     # wider baseline + closer orbit than the headline bench: at
     # 320x240/f=260 the disparity must be >~8 px for stereo scale to be

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import tracking
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import tracking
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

@@ -1,5 +1,5 @@
 """LSH-signature vs trained-vocabulary retrieval, measured head-to-head
-on a sequence with PERCEPTUAL ALIASING (VERDICT r4 #10).
+on a sequence with PERCEPTUAL ALIASING.
 
 The device loop closer retrieves with LSH min-intersection signatures
 (slam_map/bow.py); the host path scores through the trained hierarchical
@@ -10,7 +10,7 @@ Analytic equivalence arguments only go so far: with repeated structure
 (two identical-looking regions) the two systems can rank a LOOK-ALIKE
 above the true revisit differently. This test renders such a world,
 replays a revisit trajectory, and reports recall@3 for both systems on
-the same keyframe set — the evidence VERDICT r4 asked for ahead of
+the same keyframe set — evidence ahead of
 real-data parity.
 """
 
@@ -18,10 +18,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import synthetic
-from openmavis_tpu.slam_map import bow, vocabulary as voc_mod
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import synthetic
+from openmavis_jax.slam_map import bow, vocabulary as voc_mod
 
 W, H = 320, 240
 PIN = np.array([280.0, 280.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)

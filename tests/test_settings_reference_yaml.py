@@ -8,8 +8,8 @@ distortion named `k1..k4`, rig extrinsics `IMU.T_b_c1/c3/c4` +
 
 import numpy as np
 
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import settings as cfg_mod
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import settings as cfg_mod
 
 # A Hilti-style 3-camera KB8 rig written in the reference's OpenCV yaml
 # dialect (our own numbers).

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openmavis_tpu.geometry import lie
-from openmavis_tpu.solvers import pnp, sim3, two_view
+from openmavis_jax.geometry import lie
+from openmavis_jax.solvers import pnp, sim3, two_view
 
 F = jnp.float32
 
@@ -211,8 +211,8 @@ def test_pnp_ml_weighting_downweights_coarse_levels():
     noise (coarse pyramid levels); the sigma2-weighted solve must beat
     the unweighted one on rotation error."""
     import numpy as np
-    from openmavis_tpu.solvers import pnp as pnp_mod
-    from openmavis_tpu.geometry import lie
+    from openmavis_jax.solvers import pnp as pnp_mod
+    from openmavis_jax.geometry import lie
 
     rng = np.random.RandomState(0)
     N = 96
@@ -257,7 +257,7 @@ class TestMLPnPNullspace:
 
     def _offaxis_scene(self, noise=0.002, seed=0):
         import numpy as np
-        from openmavis_tpu.geometry import lie as lie_mod
+        from openmavis_jax.geometry import lie as lie_mod
         rng = np.random.default_rng(seed)
         N = 60
         # bearings 75-88 deg off the optical axis (KB8 fisheye edge)
@@ -284,7 +284,7 @@ class TestMLPnPNullspace:
         return ang, np.linalg.norm(np.asarray(res.t_cw) - t_gt)
 
     def test_offaxis_accuracy(self):
-        from openmavis_tpu.solvers import pnp
+        from openmavis_jax.solvers import pnp
         p_w, b, R_gt, t_gt = self._offaxis_scene()
         key = jax.random.PRNGKey(0)
         valid = jnp.ones(p_w.shape[0], bool)
@@ -298,7 +298,7 @@ class TestMLPnPNullspace:
         """Across seeds, the nullspace rows must dominate the classical
         cross-product rows at fisheye-edge bearings."""
         import numpy as np
-        from openmavis_tpu.solvers import pnp
+        from openmavis_jax.solvers import pnp
         wins, total = 0, 0
         for seed in range(6):
             p_w, b, R_gt, t_gt = self._offaxis_scene(noise=0.004,
@@ -317,7 +317,7 @@ class TestMLPnPNullspace:
 
     def test_nullspace_basis_orthonormal(self):
         import numpy as np
-        from openmavis_tpu.solvers import pnp
+        from openmavis_jax.solvers import pnp
         rng = np.random.default_rng(1)
         v = rng.normal(size=(500, 3))
         v /= np.linalg.norm(v, axis=-1, keepdims=True)

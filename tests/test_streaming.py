@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import streaming
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import streaming
 
 W, H = 512, 384
 PIN = np.array([380.0, 380.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)
@@ -55,7 +55,7 @@ def test_streaming_tracker_e2e():
 
 def test_record_ring_overflow():
     """Ring must clamp writes at capacity without error."""
-    from openmavis_tpu.slam_map import map_state as ms
+    from openmavis_jax.slam_map import map_state as ms
     cfg = streaming.StreamConfig(img_w=64, img_h=64,
                                  orb=extractor.OrbConfig(
                                      n_features=64, n_levels=2),

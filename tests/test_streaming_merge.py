@@ -13,14 +13,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.imu import preintegration as pre_mod
-from openmavis_tpu.io import synthetic, evaluation
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import streaming_vi
-from openmavis_tpu.slam_map import atlas as atlas_mod
-from openmavis_tpu.slam_map import map_state as ms
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.imu import preintegration as pre_mod
+from openmavis_jax.io import synthetic, evaluation
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import streaming_vi
+from openmavis_jax.slam_map import atlas as atlas_mod
+from openmavis_jax.slam_map import map_state as ms
 
 W, H = 320, 240
 PIN = np.array([300.0, 300.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)

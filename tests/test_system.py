@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from openmavis_tpu.io import settings as settings_mod
-from openmavis_tpu.io import synthetic, trajectory
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.pipeline.system import Sensor, System
+from openmavis_jax.io import settings as settings_mod
+from openmavis_jax.io import synthetic, trajectory
+from openmavis_jax.geometry import cameras
+from openmavis_jax.pipeline.system import Sensor, System
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import tracking
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import tracking
 
 # heavyweight (compile-dominated) — excluded from the fast tier
 pytestmark = __import__('pytest').mark.slow

@@ -17,11 +17,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.frontend import extractor
-from openmavis_tpu.geometry import cameras
-from openmavis_tpu.io import evaluation, synthetic
-from openmavis_tpu.optim.reprojection import RigParams
-from openmavis_tpu.pipeline import multi_tracking, system
+from openmavis_jax.frontend import extractor
+from openmavis_jax.geometry import cameras
+from openmavis_jax.io import evaluation, synthetic
+from openmavis_jax.optim.reprojection import RigParams
+from openmavis_jax.pipeline import multi_tracking, system
 
 W, H = 512, 384
 PIN = np.array([380.0, 380.0, W / 2, H / 2, 0, 0, 0, 0], np.float32)
@@ -109,7 +109,7 @@ class TestMonoInertial:
 
     def test_system_facade_imu_monocular(self, mono_sequence):
         """System(cfg, Sensor.IMU_MONOCULAR) end-to-end entry point."""
-        from openmavis_tpu.io import settings as settings_mod
+        from openmavis_jax.io import settings as settings_mod
         frames, R_wb, t_wb, imu = mono_sequence
         cfg = settings_mod.example_settings(n_cams=1)
         cfg["Camera"]["width"] = W

@@ -4,8 +4,8 @@ MapDrawer.cc, FrameDrawer.cc rendered to PNG instead of GL)."""
 import numpy as np
 import jax.numpy as jnp
 
-from openmavis_tpu.pipeline import viewer
-from openmavis_tpu.slam_map import map_state as ms
+from openmavis_jax.pipeline import viewer
+from openmavis_jax.slam_map import map_state as ms
 
 
 def _toy_map():

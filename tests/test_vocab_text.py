@@ -14,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openmavis_tpu.slam_map import vocabulary as voc_mod
+from openmavis_jax.slam_map import vocabulary as voc_mod
 
 
 def _rand_desc(rng, n):
